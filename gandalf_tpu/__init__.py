@@ -1,6 +1,6 @@
-"""GANDALF-TPU: a TPU-native SPH + Meshless-FV + N-body astrophysics framework.
+"""gandalf_tpu: a JAX SPH + Meshless-FV + N-body astrophysics framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of GANDALF
+A ground-up JAX/XLA re-design of the capabilities of GANDALF
 (Graphical Astrophysics code for N-body Dynamics And Lagrangian Fluids,
 reference: /root/reference, Hubber, Rosotti & Booth 2018):
 
@@ -10,13 +10,13 @@ reference: /root/reference, Hubber, Rosotti & Booth 2018):
   (Hermite4 / leapfrog integrators),
 - structured-array (SoA) particle state as JAX pytrees, fixed-capacity
   padded neighbour lists, `lax.while_loop` h-rho iterations,
-- multi-chip scaling through `jax.sharding.Mesh` + `shard_map` with XLA
+- multi-device scaling through `jax.sharding.Mesh` + `shard_map` with XLA
   collectives instead of MPI (reference: src/Mpi/*).
 
 Precision: GANDALF defaults to double precision (reference Makefile:27).
 Set environment variable ``GANDALF_PRECISION=double`` (or call
 :func:`enable_x64` before any JAX computation) to run regression-grade
-float64.  The throughput path uses float32/bfloat16.
+float64.  The throughput path uses float32.
 """
 
 import os

@@ -63,6 +63,9 @@ def newsim(paramfile: Optional[str] = None, ndim: Optional[int] = None,
            sim: Optional[str] = None) -> SimulationBase:
     """Create a simulation from a parameter file and/or explicit options
     (reference facade.py:659)."""
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     params = Parameters()
     if paramfile is not None:
         params.read_file(paramfile)

@@ -15,7 +15,7 @@ with wnorm_j = (m_j/rho_j) / h_j^ndim (Render.cpp:212-252, 385-414).  For
 distance including the pixel-to-plane offset (CreateSliceRenderingGrid,
 Render.cpp:257-414).  Pixels sit at cell centres (rgrid, Render.cpp:344-352).
 
-TPU-native: one vectorised (pixels x particles) kernel sum chunked over
+Device-side: one vectorised (pixels x particles) kernel sum chunked over
 pixel rows — rendering is itself a jax op here, so it runs on the
 accelerator (the reference renders in C++ on the host).
 """

@@ -1,6 +1,6 @@
 """Hierarchical (block) timesteps — power-of-two per-particle levels.
 
-TPU-native formulation of Simulation::ComputeBlockTimesteps
+Vectorised formulation of Simulation::ComputeBlockTimesteps
 (src/Common/Simulation.cpp:1763-2197), SphLeapfrogKDK::AdvanceParticles /
 EndTimestep / CheckTimesteps (src/Hydrodynamics/SphLeapfrogKDK.cpp:77-329).
 

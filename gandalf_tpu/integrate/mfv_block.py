@@ -1,6 +1,6 @@
 """Hierarchical (block) timesteps for the meshless finite-volume scheme.
 
-TPU-native formulation of MfvIntegration::AdvanceParticles / EndTimestep /
+Vectorised formulation of MfvIntegration::AdvanceParticles / EndTimestep /
 CheckTimesteps (reference src/MeshlessFV/MfvIntegration.cpp:44-260) on top
 of the shared ladder bookkeeping in integrate/block.py (the analogue of
 ComputeBlockTimesteps, src/Common/Simulation.cpp:1763-2197).

@@ -1,8 +1,8 @@
 """SPH smoothing kernels (M4 cubic spline, Quintic spline, Gaussian).
 
-TPU-native, branchless `jnp.where` piecewise polynomials — the vector unit
-evaluates all branches and selects, which is faster than any table gather on
-TPU.  The reference's TabulatedKernel (src/Headers/SmoothingKernel.h:548-720)
+Branchless `jnp.where` piecewise polynomials — every branch is evaluated
+and selected elementwise, so the kernel fuses into the pair loops with no
+table gather.  The reference's TabulatedKernel (src/Headers/SmoothingKernel.h:548-720)
 is honoured with the same semantics but ZERO gathers: its floor-index lookup
 `table[int(s*res/kernrange)]` with `table[i] = f(i*kernrange/res)` is exactly
 `f(quantise(s))`, so `tabulated_kernel = 1` quantises the kernel argument to
@@ -74,8 +74,8 @@ class SmoothingKernel:
     def invkernrange(self) -> float:
         return 1.0 / self.kernrange
 
-    # squared-argument variants (reference SmoothingKernel.h:78-80); on TPU
-    # the sqrt is cheap and fusable so these are simple wrappers.
+    # squared-argument variants (reference SmoothingKernel.h:78-80); the
+    # sqrt fuses into the pair loop, so these are simple wrappers.
     def w0_s2(self, ssqd: Array) -> Array:
         return self.w0(jnp.sqrt(ssqd))
 

@@ -1,6 +1,6 @@
 // Native host-side planners for gandalf_tpu.
 //
-// TPU-native split of the reference's runtime: device compute is JAX/XLA,
+// Split of the reference's runtime: device compute is JAX/XLA,
 // but the host-side planning passes (the analogue of KDTree::BuildTree's
 // recursive longest-axis median splits, reference src/Tree/KDTree.cpp:442-595)
 // are latency-critical CPU code that runs every tree-rebuild cadence.  The

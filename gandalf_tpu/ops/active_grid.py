@@ -8,7 +8,7 @@ the per-cell walks in GradhSphTree.cpp:82-657 iterate ACTIVE cells only).
 Round-2's block scheme had the bookkeeping but ran the full force pass
 every tick.
 
-TPU-native formulation: all particles are binned into the grid27 dense
+Dense formulation: all particles are binned into the grid27 dense
 cell tensors (O(N) scatter — cheap), and the pair work is GATHERED for a
 host-compacted, padded index list of active particles only:
 

@@ -1,7 +1,7 @@
-"""Cell-list neighbour search: the TPU production path.
+"""Cell-list neighbour search (gathered neighbour views).
 
 Replaces the reference's per-step KD-tree walks (src/Tree/KDTree.cpp,
-src/Tree/Tree.cpp:208-291) with the TPU-native formulation:
+src/Tree/Tree.cpp:208-291) with a dense formulation:
 
 1. bin particles into a uniform grid with cell edge >= kernrange * h_max,
 2. sort particles by cell id (one `argsort` per rebuild — the analogue of

@@ -1,6 +1,6 @@
 """Grad-h SPH density / smoothing-length iteration.
 
-TPU-native vectorisation of GradhSph::ComputeH
+Vectorisation of GradhSph::ComputeH
 (src/GradhSph/GradhSph.cpp:142-326): the per-particle do-while becomes one
 `lax.while_loop` over the whole batch with a converged mask, fixed-point
 iteration for the first ITER_FP rounds and bisection afterwards — identical

@@ -1,6 +1,6 @@
 """Dust dynamics: semi-implicit gas-dust drag (Loren-Aguilar & Bate 2014).
 
-TPU-native vectorisation of DustSemiImplictForces::ComputeDragForces and the
+Vectorisation of DustSemiImplictForces::ComputeDragForces and the
 test-particle interpolant (src/Common/Dust.cpp:812-1145) plus the stopping-
 time laws (src/Headers/DragLaws.h:27-108).
 

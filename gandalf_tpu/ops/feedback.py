@@ -9,7 +9,7 @@ R_therm_kin) and mass Minj at a position:
 - every affected particle gets vrad = sqrt(2 Einj /(n mmean (R+1)))
   and uinj = Einj /(n mmean (1 + 1/R)).
 
-Static TPU shapes: new particles come from pre-allocated DEAD spare slots
+Static shapes: new particles come from pre-allocated DEAD spare slots
 (created at setup, m = 0, FLAG_DEAD) that are activated by the event.
 Events are rare host-triggered operations, so the mutation runs host-side
 in numpy on a pulled-down state and is pushed back (no recompilation: N

@@ -1,8 +1,8 @@
 """Gravity operators: direct summation (stars / small N) and SPH softened
 pair gravity.
 
-Direct summation is the TPU sweet spot for N-body: the O(N^2) pairwise sums
-are dense, regular and MXU/VPU-friendly (reference
+Direct summation suits N-body on an accelerator: the O(N^2) pairwise sums
+are dense and regular (reference
 Nbody::CalculateDirectGravForces, src/Nbody/Nbody.cpp:233-280, evaluates the
 same sums with OpenMP loops).  G = 1 in internal units (reference SimUnits
 convention).

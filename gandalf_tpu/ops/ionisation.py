@@ -1,6 +1,6 @@
 """Photoionisation from point sources.
 
-TPU-native re-design of MultipleSourceIonisation
+Vectorised re-design of MultipleSourceIonisation
 (src/Thermal/MultipleSourceIonisation.cpp:55-769).  The reference walks
 per-particle neighbour CHAINS toward each source and depletes the photon
 budget along them — a serial, pointer-chasing scheme.  Here the same

@@ -1,4 +1,4 @@
-"""Monte-Carlo radiation transport on the structured grid, TPU-shaped.
+"""Monte-Carlo radiation transport on the structured grid, in dense lockstep form.
 
 Re-design of the reference's TreeMonteCarlo / MonochromaticIonisation-
 MonteCarlo modules (src/Thermal/TreeMonteCarlo.cpp + src/Tree/
@@ -8,7 +8,7 @@ walks them cell-by-cell through the KDRadiationTree, accumulating the
 Lucy (1999) path-length estimate of the radiation energy density and
 sampling absorption events per cell.
 
-TPU-native formulation: ALL packets advance in lockstep with a fixed
+Dense formulation: ALL packets advance in lockstep with a fixed
 step through the dense per-cell fields of the radiation grid
 (ops/sph_grid27 cells, the KDRadiationTree analogue) — every
 (packet, step) is one gather + one scatter-add with static shapes, no

@@ -1,5 +1,5 @@
 """Structured 27-shift neighbour drivers for the meshless finite-volume
-scheme — the TPU-native analogue of MeshlessFVTree's three tree passes
+scheme — the dense-grid analogue of MeshlessFVTree's three tree passes
 (reference src/MeshlessFV/MeshlessFVTree.cpp:318 UpdateAllProperties,
 :487 UpdateGradientMatrices, :662 UpdateGodunovFluxes).
 

@@ -1,7 +1,7 @@
 """Neighbour machinery: ghost images and (for now) all-pairs interaction.
 
 The reference builds explicit ghost-particle arrays + KD trees per step
-(src/Hydrodynamics/Ghosts.cpp, src/Tree/*).  The TPU-native formulation:
+(src/Hydrodynamics/Ghosts.cpp, src/Tree/*).  The vectorised formulation:
 
 - **periodic** boundaries need no ghosts at all — the minimum-image
   convention is applied inside the displacement computation

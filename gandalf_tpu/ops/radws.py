@@ -1,6 +1,6 @@
 """RadWS radiative cooling/heating (Stamatellos et al. 2007).
 
-TPU-native vectorisation of EnergyRadws + OpacityTable + Radws EOS
+Vectorisation of EnergyRadws + OpacityTable + Radws EOS
 (src/Hydrodynamics/EnergyRadws.cpp:60-745, src/Common/OpacityTable.cpp,
 src/Thermal/RadwsEOS.cpp): every particle relaxes exponentially toward a
 local radiative-equilibrium energy,

@@ -1,7 +1,7 @@
 """Sink particles: creation and accretion (analogue of Sinks,
 src/Headers/Sinks.h:57-148 / src/Nbody/Sinks.cpp:118-520).
 
-TPU-native formulation with STATIC shapes:
+Vectorised formulation with STATIC shapes:
 
 - sinks live in pre-allocated star slots (Nsinkmax) with an `active` mask
   instead of the reference's dynamic star array,
@@ -192,7 +192,7 @@ def smooth_accretion_sums(cfg: SinkConfig, sinks: SinkState,
     radial-drift and Shakura-Sunyaev viscous timescales by the rotational
     energy fraction; mass is removed FRACTIONALLY from the contained gas.
 
-    TPU-native deviations (documented): the accreted mass is distributed
+    Deviations from the reference (documented): the accreted mass is distributed
     over the contained particles proportionally to their kernel weight
     (the reference subtracts greedily in neighbour-list order — an
     order-dependent serial loop), and the gpe sum uses the mean enclosed

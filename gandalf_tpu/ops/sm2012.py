@@ -1,6 +1,6 @@
 """Saitoh & Makino (2012) density-independent SPH.
 
-TPU-native vectorisation of SM2012Sph (src/SM2013/SM2012Sph.cpp): the
+Vectorisation of SM2012Sph (src/SM2013/SM2012Sph.cpp): the
 pressure force is built from the smoothed internal-energy density
 q_i = (1/h^ndim) sum_j m_j u_j W(r_ij, h_i) instead of rho, which removes
 the spurious surface tension at contact discontinuities:

@@ -3,7 +3,7 @@
 The production counterpart of the all-pairs oracle in ops.density /
 ops.forces (same physics functions, gathered neighbour views).  Particles
 are processed in fixed-size chunks under `lax.map` so peak memory is
-(chunk, 3^ndim * K_cell) regardless of N — the TPU analogue of the
+(chunk, 3^ndim * K_cell) regardless of N — the analogue of the
 reference's per-cell OpenMP work batches (GradhSphTree.cpp:107-265).
 
 The h-rho iteration runs chunk-locally: squared distances to the chunk's

@@ -62,31 +62,37 @@ def star_gas_forces(kern: SmoothingKernel,
 
 def direct_sph_gravity(kern: SmoothingKernel,
                        r: Array, m: Array, h: Array,
-                       zeta: Array, hfactor: Array) -> SphGravityResult:
+                       zeta: Array, hfactor: Array,
+                       targets: Array = None) -> SphGravityResult:
     """Symmetric smoothed gravity over all pairs.
 
     paux = 0.5*[ wgrav(s_i)/h_i^2 + zeta_i*hfactor_i*w1(s_i)
                + wgrav(s_j)/h_j^2 + zeta_j*hfactor_j*w1(s_j) ]
     a_i += m_j * paux * dr_hat;  gpot_i += m_j * 0.5*(wpot_i/h_i + wpot_j/h_j)
     (GradhSph.cpp:598-640)
+
+    `targets` (optional int indices) evaluates only those particles,
+    still against every source; results are then (len(targets), ...).
     """
     N = r.shape[0]
-    dr = r[None, :, :] - r[:, None, :]
+    idx = jnp.arange(N) if targets is None else jnp.asarray(targets)
+    dr = r[None, :, :] - r[idx][:, None, :]
     drsqd = jnp.sum(dr * dr, axis=-1)
-    eye = jnp.eye(N, dtype=bool)
+    eye = idx[:, None] == jnp.arange(N)[None, :]
     drmag = jnp.sqrt(jnp.where(eye, 1.0, drsqd))
     inv_drmag = jnp.where(eye, 0.0, 1.0 / drmag)
     unit = dr * inv_drmag[..., None]
 
-    invh_i = (1.0 / h)[:, None]
+    zh = zeta * hfactor
+    invh_i = (1.0 / h[idx])[:, None]
     invh_j = (1.0 / h)[None, :]
     s_i = drmag * invh_i
     s_j = drmag * invh_j
     paux = 0.5 * (
         invh_i * invh_i * kern.wgrav(s_i)
-        + (zeta * hfactor)[:, None] * kern.w1(s_i)
+        + zh[idx][:, None] * kern.w1(s_i)
         + invh_j * invh_j * kern.wgrav(s_j)
-        + (zeta * hfactor)[None, :] * kern.w1(s_j)
+        + zh[None, :] * kern.w1(s_j)
     )
     gaux = 0.5 * (invh_i * kern.wpot(s_i) + invh_j * kern.wpot(s_j))
     paux = jnp.where(eye, 0.0, paux)

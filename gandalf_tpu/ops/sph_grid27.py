@@ -1,6 +1,6 @@
 """Structured 27-shift SPH pipeline: zero gathers in the hot loop.
 
-The TPU-native formulation of the neighbour problem:
+A dense formulation of the neighbour problem:
 
 1. particles are binned to a uniform grid and scattered into dense per-cell
    storage shaped (nz, ny, nx, K, ...) (K = padded slots per cell),
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Dict, NamedTuple, Tuple
 
 import jax
@@ -72,33 +73,12 @@ def hmax_of(spec: Grid27Spec, kernrange: float) -> float:
 
 def plan_grid27(box: DomainBox, r: np.ndarray, h_max: float,
                 kernrange: float, k_slack: float = 1.35,
-                k_target: int = None, z_multiple: int = 1) -> Grid27Spec:
-    """Host-side planning (per rebuild cadence).
-
-    With k_target (e.g. 128 for the Pallas kernels), the cell size is grown
-    above the kernel support until the padded slot count k_cell can be
-    pinned to exactly k_target — full 128-lane tiles on the TPU.
-    """
+                z_multiple: int = 1) -> Grid27Spec:
+    """Host-side planning (per rebuild cadence): cells as small as the
+    kernel support allows, k_cell slots sized from the fullest cell."""
     r = np.asarray(r)
     ndim = r.shape[1]
     support = float(kernrange * h_max)
-    if k_target is not None:
-        # grow the cell size (raising occupancy) as far as k_target allows,
-        # then pin k_cell to exactly k_target (full-lane tiles)
-        best = None
-        sup = support
-        for _ in range(30):
-            spec = plan_grid27(box, r, sup / kernrange, kernrange, k_slack,
-                               z_multiple=z_multiple)
-            if spec.k_cell > k_target:
-                break
-            best = spec
-            if min(spec.ncells) <= 2:
-                break
-            sup *= 1.12
-        if best is None:
-            raise ValueError("k_target too small for this distribution")
-        return dataclasses.replace(best, k_cell=k_target)
     pdims = box.periodic_dims()
     walls = box.mirror_walls()
     mlo = [False] * ndim
@@ -331,12 +311,10 @@ def _concat_shift_table(spec: Grid27Spec, padded: Array,
     """All shift views concatenated along the slot axis: (*nc, K, ...) ->
     (*nc, S*K, ...) where S = stencil size.
 
-    The TPU pads the minor two dims of every (cells, K, K) pair block to
-    (8, 128) tiles, so K = 65 runs at barely 45% lane utilisation per
-    shift; one (cells, K, S*K) block pads S*K = 1755 -> 1792 instead
-    (~2% waste, measured ~1.8x on the pair math).  The table is a real
-    copy (27 slices), but it is linear in pairs/K — negligible next to
-    the quadratic pair work it feeds."""
+    One (cells, K, S*K) pair block per slab instead of S (cells, K, K)
+    blocks: every neighbour sum becomes a single reduction over the last
+    axis.  The table is a real copy (S slices), but it is linear in
+    pairs/K — negligible next to the quadratic pair work it feeds."""
     axis = padded.ndim - 1 - k_axis_from_end
     views = [_shift_view(spec, padded, sh)
              for sh in _shifts(spec.ndim, spec.qz)]
@@ -387,7 +365,8 @@ def density_grid27(kern: SmoothingKernel, spec: Grid27Spec,
 
     n0 = spec.ncells[0]
     if slab_chunk is None:
-        slab_chunk = _auto_slab(spec, concat=True)
+        slab_chunk = _auto_slab(spec, concat=True,
+                                itemsize=r_d.dtype.itemsize)
     slab_chunk = min(slab_chunk, n0)
     n_slabs = -(-n0 // slab_chunk)
     pad0_amount = n_slabs * slab_chunk - n0
@@ -510,19 +489,44 @@ from .forces import ACOND_NONE, ACOND_PRICE2008, ACOND_WADSLEY2008  # noqa: E402
 from .forces import AVISC_MON97, AVISC_MON97MM97, AVISC_NONE  # noqa: E402
 
 
-def _auto_slab(spec: Grid27Spec, concat: bool = False) -> int:
-    """Largest dim-0 slab whose pair temporaries stay under ~256 MB in f32
-    INCLUDING TPU tile padding (the minor dim pads to 128 lanes and the
-    second-minor to 8 sublanes, so K = 43 really costs 48 x 128 — a 3.3x
-    expansion that OOMed the 1M benchmark).  concat=True sizes for the
-    (cells, K, S*K) concatenated-table block instead of (cells, K, K)."""
-    import numpy as np
+# Pair temporaries of one slab that can be live at once (the density
+# pass keeps drsqd plus the kernel sums of each h iteration; the force
+# pass its kernel, viscosity and geometry terms), and the share of the
+# device's memory the slab may take.
+SLAB_PAIR_TEMPS = 8
+SLAB_MEMORY_FRACTION = 1.0 / 32
 
+
+def device_bytes_limit(device=None) -> int:
+    """Bytes the device can allocate, as the runtime reports them.  The
+    CPU backend reports none; its memory is the host's RAM, shared by
+    every (virtual) CPU device of the process.  Any other device that
+    reports no limit is an error, not a default."""
+    device = device or jax.devices()[0]
+    stats = device.memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    if device.platform == "cpu":
+        ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+        return ram // len(jax.devices("cpu"))
+    raise RuntimeError(f"device {device.device_kind!r} reports no "
+                       "bytes_limit; cannot size the pair slabs")
+
+
+def _auto_slab(spec: Grid27Spec, concat: bool = False, itemsize: int = 4,
+               bytes_limit: int = None) -> int:
+    """Largest dim-0 slab whose pair temporaries fit the budget:
+    SLAB_PAIR_TEMPS live (cells, K, cols) arrays of `itemsize` bytes
+    within SLAB_MEMORY_FRACTION of the device memory.  concat=True sizes
+    for the (cells, K, S*K) concatenated-table block instead of
+    (cells, K, K)."""
     k = spec.k_cell
     cols = k * len(_shifts(spec.ndim, spec.qz)) if concat else k
-    k_pad = (-(-k // 8) * 8) * (-(-cols // 128) * 128)  # padded pair block
-    rest = int(np.prod(spec.ncells[1:])) * k_pad
-    return max(1, int(6.4e7 // max(rest, 1)))
+    row_bytes = (int(np.prod(spec.ncells[1:])) * k * cols * itemsize
+                 * SLAB_PAIR_TEMPS)
+    if bytes_limit is None:
+        bytes_limit = device_bytes_limit()
+    return max(1, int(SLAB_MEMORY_FRACTION * bytes_limit) // row_bytes)
 
 
 def forces_grid27(kern: SmoothingKernel, visc: ArtificialViscosity,
@@ -545,7 +549,8 @@ def forces_grid27(kern: SmoothingKernel, visc: ArtificialViscosity,
 
     n0 = spec.ncells[0]
     if slab_chunk is None:
-        slab_chunk = _auto_slab(spec, concat=True)
+        slab_chunk = _auto_slab(spec, concat=True,
+                                itemsize=r_d_full.dtype.itemsize)
     slab_chunk = min(slab_chunk, n0)
     n_slabs = -(-n0 // slab_chunk)
     pad0_amount = n_slabs * slab_chunk - n0
@@ -619,7 +624,7 @@ def _force_shifts(kern, visc, spec, nd, i_of, rp, vp, pkp, fp_, r_d, v_i,
                   alpha_i, u_i, a, dudt, div_v):
     """Accumulate pair forces over the shift stencil for one slab — ONE
     (cells, K, S*K) pair block over the concatenated neighbour tables
-    (full-lane tiles; see _concat_shift_table)."""
+    (see _concat_shift_table)."""
     r_nb = _concat_shift_table(spec, rp, 1)
     v_nb = _concat_shift_table(spec, vp, 1)
     pk_nb = _concat_shift_table(spec, pkp, 1)
@@ -627,51 +632,14 @@ def _force_shifts(kern, visc, spec, nd, i_of, rp, vp, pkp, fp_, r_d, v_i,
 
     g = lambda k: pk_nb[..., None, :, i_of[k]]     # (*nc, 1, S*K)
 
-    # MXU pair geometry (same formulation as the gravity near field,
-    # ops/tree.py _near_field): pair distances from the dot-product
-    # expansion and every vector contraction as a batched matmul — the
-    # (cells, K, S*K, nd) displacement/unit tensors are never
-    # materialised and the reductions ride the MXU instead of the VPU.
-    # Cell-anchored coordinates keep the expansion's cancellation error
-    # at the pair scale (~cells) rather than the domain scale; the
-    # anchor is the masked mean of the central cell's own positions
-    # (empty slots hold r = 0, which must not drag it).
-    K = r_d.shape[-2]
-    shifts = _shifts(spec.ndim, spec.qz)
-    z0 = shifts.index((spec.qz,) + (1,) * (spec.ndim - 1))
-    fill_c = jax.lax.slice_in_dim(f_nb, z0 * K, (z0 + 1) * K, axis=-1)
-    w_anc = fill_c.astype(r_d.dtype)
-    anchor = (jnp.sum(r_d * w_anc[..., None], axis=-2)
-              / jnp.maximum(jnp.sum(w_anc, axis=-1), 1.0)[..., None])
-    rc_d = r_d - anchor[..., None, :]                 # (*nc, K, nd)
-    rc_nb = r_nb - anchor[..., None, :]               # (*nc, S*K, nd)
-    hi_p = jax.lax.Precision.HIGHEST
-    rr_i = jnp.sum(rc_d * rc_d, axis=-1)
-    rr_j = jnp.sum(rc_nb * rc_nb, axis=-1)
-    cross = jnp.einsum("...kd,...jd->...kj", rc_d, rc_nb,
-                       precision=hi_p)
-    drsqd = jnp.maximum(rr_i[..., :, None] + rr_j[..., None, :]
-                        - 2.0 * cross, 0.0)
-    # Self pairs are masked by IDENTITY (central-shift slot k is row k):
-    # the expansion need not cancel exactly for i == j, and a residual
-    # above the coincidence floor would inject a huge spurious force.
-    col = jnp.arange(f_nb.shape[-1], dtype=jnp.int32)
-    row = jnp.arange(K, dtype=jnp.int32)
-    self_pair = col[None, :] == z0 * K + row[:, None]
-    # coincidence floor: separations whose square sits below the
-    # expansion's cancellation noise (~eps * coordinate-scale^2) are
-    # numerically degenerate and treated as coincident, exactly like the
-    # old drmag > 0 test treated exact overlaps.  Scale from the
-    # anchored coordinates (~2 cells); dims >= 1 carry the true cell
-    # width (dim 0 of a slab sub-spec holds the slab count, not ncells)
-    dims = range(1, spec.ndim) if spec.ndim > 1 else range(1)
-    cell_w = min(spec.extents[k] / spec.ncells[k] for k in dims)
-    eps = jnp.finfo(drsqd.dtype).eps
-    tiny = 64.0 * eps * jnp.asarray((2.0 * cell_w) ** 2, drsqd.dtype)
+    # plain pair differences: the self pair (central-shift slot k, row k)
+    # and coincident particles come out exactly 0 and are masked by it
+    dr = r_nb[..., None, :, :] - r_d[..., :, None, :]   # (*nc, K, S*K, nd)
+    drsqd = jnp.sum(dr * dr, axis=-1)
+    valid = f_nb[..., None, :] & (drsqd > 0.0)
     drmag = jnp.sqrt(drsqd)
-    valid = f_nb[..., None, :] & ~self_pair & (drsqd > tiny)
     inv_drmag = jnp.where(valid,
-                          jax.lax.rsqrt(jnp.maximum(drsqd, tiny)), 0.0)
+                          jax.lax.rsqrt(jnp.where(valid, drsqd, 1.0)), 0.0)
 
     m_j = g("m")
     h_j = jnp.where(valid, g("h"), 1.0)
@@ -682,15 +650,8 @@ def _force_shifts(kern, visc, spec, nd, i_of, rp, vp, pkp, fp_, r_d, v_i,
     wkerni = jnp.where(valid, wkerni, 0.0)
     wkernj = jnp.where(valid, wkernj, 0.0)
 
-    # (v_j - v_i).(r_j - r_i) = v_j.r_j - r_i.v_j - v_i.r_j + v_i.r_i
-    vr_ii = jnp.sum(v_i * rc_d, axis=-1)
-    vr_jj = jnp.sum(v_nb * rc_nb, axis=-1)
-    cross_jv = jnp.einsum("...kd,...jd->...kj", rc_d, v_nb,
-                          precision=hi_p)
-    cross_iv = jnp.einsum("...kd,...jd->...kj", v_i, rc_nb,
-                          precision=hi_p)
-    dvdr = (vr_jj[..., None, :] - cross_jv - cross_iv
-            + vr_ii[..., :, None]) * inv_drmag
+    dvdr = jnp.sum((v_nb[..., None, :, :] - v_i[..., :, None, :]) * dr,
+                   axis=-1) * inv_drmag
     div_v = div_v - jnp.sum(m_j * dvdr * wkerni, axis=-1)
 
     paux = ((press_i * invom_i * invrho_i * invrho_i)[..., None] * wkerni
@@ -724,11 +685,8 @@ def _force_shifts(kern, visc, spec, nd, i_of, rp, vp, pkp, fp_, r_d, v_i,
                                          - g("pressure"))))
             dudt = dudt + jnp.sum(jnp.where(approach, cond_t, 0.0), -1)
 
-    # a_i += sum_j w_ij (r_j - r_i)/d = (w/d) @ r_j - r_i sum_j (w/d)
     w_pair = m_j * paux * inv_drmag                   # (*nc, K, S*K)
-    a = a + (jnp.einsum("...kj,...jd->...kd", w_pair, rc_nb,
-                        precision=hi_p)
-             - rc_d * jnp.sum(w_pair, axis=-1)[..., None])
+    a = a + jnp.sum(w_pair[..., None] * dr, axis=-2)
 
     # div_v normalisation and dalphadt happen in the caller (whole grid)
     return a, dudt, div_v

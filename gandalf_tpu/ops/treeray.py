@@ -1,4 +1,4 @@
-"""TreeRay-style reverse ray-traced radiation transport, TPU-shaped.
+"""TreeRay-style reverse ray-traced radiation transport, in dense ray-marching form.
 
 Re-design of the reference's TreeRay module (src/Radiation/TreeRay.cpp:
 1-1003 + TreeRayOnTheSpot.cpp, HEALPix directions via chealpix.c): the
@@ -6,7 +6,7 @@ reference maps tree nodes onto per-target HEALPix rays and integrates
 column densities adaptively along each ray — a pointer-chasing walk per
 (target, ray).
 
-TPU-native formulation: radiation quantities are integrated by FIXED-STEP
+Dense formulation: radiation quantities are integrated by FIXED-STEP
 ray marching through the structured density grid (ops/sph_grid27) —
 every (target, direction, step) sample is one gather from a dense
 per-cell field, so the whole transport pass is a single vectorised

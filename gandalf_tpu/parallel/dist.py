@@ -1,6 +1,6 @@
-"""Distributed (multi-chip) simulation runtime.
+"""Distributed (multi-device) simulation runtime.
 
-TPU-native replacement for the reference's MPI layer (SURVEY.md §2.6;
+SPMD replacement for the reference's MPI layer (SURVEY.md §2.6;
 MpiKDTreeDecomposition::CreateInitialDomainDecomposition
 src/Mpi/MpiKDTreeDecomposition.cpp:56-280, ghost exchange
 src/Hydrodynamics/Ghosts.cpp:161-202, dt Allreduce
@@ -700,7 +700,7 @@ def dist_tree_gravity(treespec, bucket_map: Array, s: SphState,
     """Distributed Barnes-Hut gravity inside shard_map: all_gather the
     (r, m, h, zh) source arrays, build the replicated implicit tree, walk
     only this shard's contiguous group range, and psum the partial
-    accelerations (the TPU analogue of the reference's pruned-tree remote
+    accelerations (the analogue of the reference's pruned-tree remote
     multipoles + export/return force sums, HydroTree.cpp:777-1238)."""
     from ..ops.tree import build_tree, tree_gravity
 

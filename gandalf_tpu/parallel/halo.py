@@ -1,6 +1,6 @@
-"""Multi-chip halo exchange for the structured-grid SPH pipeline.
+"""Multi-device halo exchange for the structured-grid SPH pipeline.
 
-TPU-native analogue of the reference's MPI domain decomposition + ghost
+SPMD analogue of the reference's MPI domain decomposition + ghost
 particle exchange (SURVEY.md §2.6; reference src/MpiControl,
 GhostNeighbours.hpp): the dense (nz, ny, nx, K, ...) cell tensors are
 sharded along the leading (z) axis over a 1-D `jax.sharding.Mesh`, and
@@ -22,9 +22,8 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..ops import sph_grid27 as g
 
@@ -112,7 +111,7 @@ def make_halo_ghost_fn_balanced(axis_name: str, global_spec, local_spec,
     Requires min(row_len) >= qz (checked at plan time; the planner falls
     back to the uniform split otherwise).
 
-    This is the TPU-native analogue of the reference's work-balanced MPI
+    This is the analogue of the reference's work-balanced MPI
     ghost exchange (FindLoadBalancingDivision split +
     Ghosts::CopyHydroDataToGhosts over variable domain widths,
     src/Tree/HydroTree.cpp:1554, src/Hydrodynamics/Ghosts.cpp:161-202)."""
@@ -199,7 +198,7 @@ def hydro_pass_grid27_sharded(mesh: Mesh, axis_name: str,
     out_specs = (P(axis_name),) * 9 + (P(),)
 
     @partial(shard_map, mesh=mesh, in_specs=(in_specs,),
-             out_specs=out_specs, check_rep=False)
+             out_specs=out_specs, check_vma=False)
     def local_pass(dn: Dict[str, Array]):
         ghost = make_halo_ghost_fn(axis_name, spec, local_spec)
         dens = g.density_grid27(kern, local_spec, h_fac, h_converge,

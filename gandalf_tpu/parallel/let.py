@@ -3,7 +3,7 @@
 Memory-scalable replacement for the replicated distributed gravity in
 `parallel/dist.py:dist_tree_gravity` (which all_gathers every particle,
 builds the full tree on every shard, and psums O(N_total) arrays).  The
-TPU-native analogue of the reference's pruned trees + export/return
+SPMD analogue of the reference's pruned trees + export/return
 force dance (HydroTree::BuildPrunedTree /root/reference/src/Tree/
 HydroTree.cpp:1044-1238, StockPrunedTree :1240, UpdateGravityExportList
 :777, MpiControl export/return :745-910):
@@ -49,7 +49,8 @@ import numpy as np
 from jax import lax
 
 from ..ops.tree import (TreeSpec, _compact, _safe_invr, build_tree,
-                        plan_buckets_kd, tree_gravity, unwrap_to_buckets)
+                        group_chunk_for, plan_buckets_kd, tree_gravity,
+                        unwrap_to_buckets)
 
 Array = jnp.ndarray
 
@@ -172,8 +173,7 @@ def plan_let(r_sharded: np.ndarray, perm: np.ndarray, n_shards: int,
         frontier=min(max(2 * near_cap, 64), 2 * G_comb),
         theta_sqd=theta_sqd, quadrupole=quadrupole, fast=False,
         near_cap=near_cap,
-        group_chunk=int(np.clip(
-            2 ** 25 // max(leaf_size * leaf_size * near_cap, 1), 8, 128)),
+        group_chunk=group_chunk_for(leaf_size, near_cap),
         support_cap=min(64, G_comb))
     plan = LetPlan(
         n_shards=S, ring_radius=R, spec_comb=spec_comb, g_loc=G_loc,

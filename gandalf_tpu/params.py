@@ -36,8 +36,8 @@ _INT_DEFAULTS: Dict[str, int] = {
     "nbody_single_timestep": 0,
     "conservative_sph_star_gravity": 1,
     # reference default is 1 (table lookups are faster than polynomials on
-    # CPU); on TPU direct piecewise-polynomial evaluation is exact AND at
-    # least as fast, so the default here is direct.  tabulated_kernel = 1
+    # CPU); direct piecewise-polynomial evaluation is exact and fuses into
+    # the pair loops, so the default here is direct.  tabulated_kernel = 1
     # reproduces the reference's table quantisation exactly (see
     # kernels.smoothing.TabulatedKernel).
     "tabulated_kernel": 0,
@@ -51,7 +51,7 @@ _INT_DEFAULTS: Dict[str, int] = {
     # tree-bucket replan cadence; the reference default is 1 (rebuild every
     # step, KDTree::BuildTree is cheap there) but our host-side bucket
     # planning costs ~0.1s/M particles, and stale buckets stay CORRECT
-    # (boxes are re-stocked in-jit every step) — 8 is the TPU-tuned default
+    # (boxes are re-stocked in-jit every step), so the default is 8
     "ntreebuildstep": 8,
     "ntreestockstep": 1,
     # device shards for the distributed (multi-chip) controller; 0 = single

@@ -16,13 +16,8 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
+from jax import lax, shard_map
 from jax.sharding import PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..ops import mfv as mfv_ops
 from ..parallel import dist
@@ -175,12 +170,8 @@ class DistributedMfvSimulation(MfvMusclSimulation):
                              nstep=s.nstep + 1)
 
         specs = self._dist_specs()
-        try:
-            sm = shard_map(local_fn, mesh=self.mesh, in_specs=(specs,),
-                           out_specs=specs, check_vma=False)
-        except TypeError:  # older jax spells it check_rep
-            sm = shard_map(local_fn, mesh=self.mesh, in_specs=(specs,),
-                           out_specs=specs, check_rep=False)
+        sm = shard_map(local_fn, mesh=self.mesh, in_specs=(specs,),
+                       out_specs=specs, check_vma=False)
         return jax.jit(sm)
 
     def _build_dist_block(self, bootstrap: bool):
@@ -290,12 +281,8 @@ class DistributedMfvSimulation(MfvMusclSimulation):
         else:
             fn, in_specs = local_tick, (specs, sspecs)
         out_specs = (specs, sspecs)
-        try:
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_vma=False)
-        except TypeError:  # older jax spells it check_rep
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_rep=False)
+        sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
         return jax.jit(sm)
 
     def _compile(self):

@@ -25,13 +25,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
-
-try:  # jax >= 0.8 moved shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
+from jax import lax, shard_map
 from jax.sharding import PartitionSpec as P
 
 from ..integrate.leapfrog import correct, predict, sph_timestep
@@ -466,12 +460,8 @@ class DistributedGradhSphSimulation(GradhSphSimulation):
         else:
             fn, in_specs, out_specs = (local_gas_tick, (specs, sspecs),
                                        (specs, sspecs))
-        try:
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_vma=False)
-        except TypeError:  # older jax spells it check_rep
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_rep=False)
+        sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
         return jax.jit(sm)
 
     def _build_dist_step(self, bootstrap: bool):
@@ -577,12 +567,8 @@ class DistributedGradhSphSimulation(GradhSphSimulation):
                                        (specs, sink_specs))
         else:
             fn, in_specs, out_specs = local_gas, (specs,), specs
-        try:
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_vma=False)
-        except TypeError:  # older jax spells it check_rep
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_rep=False)
+        sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
         return jax.jit(sm)
 
     def _compile(self):
@@ -611,12 +597,8 @@ class DistributedGradhSphSimulation(GradhSphSimulation):
         ex_specs = (P("dp"), P("dp")) if with_sched else ()
         in_specs = (specs,) + ex_specs
         out_specs = (specs,) + ex_specs + (P(),)
-        try:
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_vma=False)
-        except TypeError:  # older jax spells it check_rep
-            sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
-                           out_specs=out_specs, check_rep=False)
+        sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
+                       out_specs=out_specs, check_vma=False)
         return jax.jit(sm)
 
     def _try_device_migrate(self) -> bool:
@@ -663,12 +645,11 @@ class DistributedGradhSphSimulation(GradhSphSimulation):
     # -- host lifecycle ----------------------------------------------------
     def SetupSimulation(self):
         from ..state import make_sph_state
-        from .ic import generate_ic
 
         with self.timing.block("SETUP"):
             self.process_parameters()
             self.mesh = dist.make_mesh(self.n_shards)
-            ic = generate_ic(self.params, self.eos)
+            ic = self._initial_conditions()
             state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"],
                                    ic["u"])
             if "ptype" in ic:

@@ -2,7 +2,7 @@
 
 The reference stores particles as arrays-of-structs (`Particle<ndim>`,
 src/Headers/Particle.h:133-223) with trimmed per-loop proxy structs.  The
-TPU-native layout is the transpose: one jax array per field (SoA), so every
+device layout is the transpose: one jax array per field (SoA), so every
 hot loop is a fused vector op and per-kernel "proxies" are just field
 selections.  Fixed capacity + dead mask replaces dynamic allocation.
 

@@ -1,5 +1,5 @@
 """Cell-list neighbour search vs the all-pairs brute-force oracle
-(the TPU analogue of the reference's bruteforce-tree validation,
+(the analogue of the reference's bruteforce-tree validation,
 src/Tree/BruteForceTree.cpp usage in tests/paper_tests/treescaling.py)."""
 
 import numpy as np

@@ -208,10 +208,7 @@ class TestDeviceMigration:
 
         from gandalf_tpu.parallel import dist as dist_mod
 
-        try:
-            from jax import shard_map
-        except ImportError:
-            from jax.experimental.shard_map import shard_map
+        from jax import shard_map
 
         sim = _run(3, grav=0, n_steps=1)
         plan = sim.distplan
@@ -228,12 +225,8 @@ class TestDeviceMigration:
             return lax.pmax(over.astype(jnp.int32), "dp") > 0
 
         specs = sim._dist_specs()
-        try:
-            sm = shard_map(fn, mesh=sim.mesh, in_specs=(specs,),
-                           out_specs=P(), check_vma=False)
-        except TypeError:
-            sm = shard_map(fn, mesh=sim.mesh, in_specs=(specs,),
-                           out_specs=P(), check_rep=False)
+        sm = shard_map(fn, mesh=sim.mesh, in_specs=(specs,),
+                       out_specs=P(), check_vma=False)
         assert bool(jax.jit(sm)(st))
 
     def test_cadence_uses_device_path_and_matches(self):

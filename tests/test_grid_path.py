@@ -1,7 +1,7 @@
 """Production-path (grid27 + bucket tree) versions of the physics gates.
 
 The reference runs every regression test through its production KD-tree
-path; round-1 only oracle-tested the TPU grid27 path.  These tests run the
+path; round-1 only oracle-tested the grid27 path.  These tests run the
 same L1/conservation gates with neib_search=kdtree so a neighbour-miss or
 masking bug in the production path trips the same thresholds
 (VERDICT round 1, weak #4).

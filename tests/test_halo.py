@@ -1,4 +1,4 @@
-"""Multi-chip halo-exchange pipeline (parallel/halo.py) — the TPU analogue
+"""Multi-device halo-exchange pipeline (parallel/halo.py) — the analogue
 of the reference's MPI domain decomposition + ghost exchange (SURVEY §2.6).
 Runs on the virtual CPU device mesh from conftest."""
 

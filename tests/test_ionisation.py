@@ -1,4 +1,4 @@
-"""Photoionisation (TPU re-design of MultipleSourceIonisation,
+"""Photoionisation (vectorised re-design of MultipleSourceIonisation,
 src/Thermal/MultipleSourceIonisation.cpp): the ionised region around a
 source in uniform gas must match the analytic Stromgren radius."""
 

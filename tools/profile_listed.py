@@ -1,7 +1,7 @@
 """Listed-walk gravity ablation profiler: splits tree_gravity_listed's
 cost into stock (build_tree from live positions), far field (multipole
 list evaluation) and near field (leaf pair block + support tier) by
-timing width-ablated variants on the real chip — the list widths are
+timing width-ablated variants on the GPU — the list widths are
 SHAPES, so slicing a list to width 0 removes that tier's compute.
 
     BENCH_NSIDE=100 python tools/profile_listed.py
@@ -25,12 +25,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_bench_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gandalf_tpu.utils.compile_cache import enable_compile_cache
 
-    from bench import build_sim
+    enable_compile_cache()
+
+    from bench import build_sim, jitter_box
     from gandalf_tpu.ops.tree import build_tree, tree_gravity_listed
     from gandalf_tpu.sim.ic import generate_ic
     from gandalf_tpu.state import make_sph_state
@@ -39,11 +38,7 @@ def main():
     reps = int(os.environ.get("PROFILE_REPS", "5"))
     sim = build_sim(n_side)
     ic = generate_ic(sim.params, sim.eos)
-    rng = np.random.default_rng(42)
-    spacing = 1.0 / n_side
-    ic["r"] = np.mod(ic["r"] + 0.2 * spacing
-                     * rng.standard_normal(ic["r"].shape), 1.0)
-    ic["v"] = 0.05 * rng.standard_normal(ic["v"].shape)
+    jitter_box(ic, n_side)
     state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"], ic["u"])
     sim.state = state
     sim._plan_grid(ic["r"], ic["h"], growth=1.3)

@@ -1,6 +1,6 @@
 """Tree-gravity variant profiler: splits the walk's cost into far-field
 (frontier multipole), near-field (leaf pair block), and smoothed-support
-tiers by timing ablated variants on the real chip.
+tiers by timing ablated variants on the GPU.
 
     BENCH_NSIDE=64 python tools/profile_tree.py
 """
@@ -19,14 +19,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(repo, ".jax_bench_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from gandalf_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import dataclasses
 
-    from bench import build_sim
+    from bench import build_sim, jitter_box
     from gandalf_tpu.ops.tree import tree_gravity_grouped
     from gandalf_tpu.sim.ic import generate_ic
     from gandalf_tpu.state import make_sph_state
@@ -35,11 +34,7 @@ def main():
     reps = int(os.environ.get("PROFILE_REPS", "5"))
     sim = build_sim(n_side)
     ic = generate_ic(sim.params, sim.eos)
-    rng = np.random.default_rng(42)
-    spacing = 1.0 / n_side
-    ic["r"] = np.mod(ic["r"] + 0.2 * spacing
-                     * rng.standard_normal(ic["r"].shape), 1.0)
-    ic["v"] = 0.05 * rng.standard_normal(ic["v"].shape)
+    jitter_box(ic, n_side)
     state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"], ic["u"])
     sim.state = state
     sim._plan_grid(ic["r"], ic["h"], growth=1.3)
