@@ -3,13 +3,21 @@
 BH-tree gravity per step).
 
 Prints one JSON line per completed size (the last is the largest):
-{"metric", "value", "unit", "vs_baseline", "platform", "device_kind",
-"device_count"}.  Refuses any backend but a GPU.
+{"metric", "value", "unit", "vs_baseline", "recompiles_in_window",
+"platform", "device_kind", "device_count"}.  Refuses any backend but a
+GPU.
 
 Flagship configuration: 3D periodic jittered box, grad-h SPH density +
 hydro forces + KD-bucket Barnes-Hut tree gravity (quadrupole,
 theta^2 = 0.1, isolated-box model: ewald = 0) + leapfrog KDK, global
 timestep, structured-grid (27-shift) neighbour path, float32.
+
+The window (`run_cadence`, shared with chip_smoke.py): the box is built
+through the user path (factory -> SetupSimulation), run through two
+rebuild-cadence boundaries plus two steps, and then whole cadences of
+ntreebuildstep steps through main_loop_steps (host replan and async
+bursts included) are timed until one runs without a recompile, at most
+two.  The value is that cadence; every timed cadence goes to stderr.
 
 The baseline denominator is the measured reference (GANDALF C++,
 single-core -O2, on a 1-core x86_64 VM with g++ 13) running the SAME self-gravitating step on an
@@ -31,6 +39,10 @@ import sys
 import time
 
 import numpy as np
+
+WARMUP_CADENCES = 2         # cadence boundaries before timing: their
+WARMUP_EXTRA = 2            # replans settle the caps on converged h
+MAX_TIMED_CADENCES = 2      # time until a cadence runs without a recompile
 
 
 def require_gpu(jax) -> None:
@@ -83,6 +95,8 @@ def jitter_box(ic: dict, n_side: int, seed: int = 42) -> None:
 
 
 def build_sim(n_side: int, self_gravity: int = 1):
+    """The flagship simulation with its parameters processed and nothing
+    set up, for tools that plan and step it by hand."""
     from gandalf_tpu.sim.simulation import GradhSphSimulation
 
     sim = GradhSphSimulation(flagship_params(n_side, self_gravity))
@@ -90,111 +104,109 @@ def build_sim(n_side: int, self_gravity: int = 1):
     return sim
 
 
-def measure(n_side: int, n_steps: int, neib: str = "kdtree",
-            self_gravity: int = 1) -> dict:
-    """Measure one configuration; raises on any failure.
+def flagship_sim(n_side: int, nmpi: int = 0, ntb: int = None,
+                 self_gravity: int = 1):
+    """The flagship box, jittered, set up through the user path:
+    factory, `ic = python` imports, SetupSimulation.  `ntb` overrides
+    the rebuild cadence."""
+    from gandalf_tpu.sim.ic import generate_ic
+    from gandalf_tpu.sim.simulation import SimulationBase
 
-    Drives the PRODUCTION host loop (sim.main_loop_step) — not the raw
-    jitted step — so the measurement includes everything a real run pays:
-    the tree-rebuild cadence (host-side interaction-list planning for the
-    drift-skin listed gravity walk) and any overflow-driven replans.  The
-    timed window is one full rebuild cadence (n_steps = ntreebuildstep by
-    default) so exactly one host replan is amortised into the number, the
-    same way the reference's 20-MainLoop-step measurement includes its
-    KD-tree builds (BASELINE_MEASURED.json methodology)."""
+    params = flagship_params(n_side, self_gravity)
+    params.set("Nmpi", nmpi)
+    if ntb is not None:
+        params.set("ntreebuildstep", ntb)
+    sim = SimulationBase.factory(params)
+    sim.process_parameters()
+    ic = generate_ic(sim.params, sim.eos)
+    jitter_box(ic, n_side)
+    sim.SetParam("ic", "python")
+    for k, name in enumerate("xyz"):
+        sim.ImportArray(ic["r"][:, k], name)
+        sim.ImportArray(ic["v"][:, k], "v" + name)
+    for name in ("m", "h", "u"):
+        sim.ImportArray(ic[name], name)
+    sim.SetupSimulation()
+    return sim
+
+
+def advance(sim, n: int) -> None:
+    done = 0
+    while done < n:
+        done += sim.main_loop_steps(n - done)
+
+
+class CompileClock:
+    """Sums JAX's trace, lowering and backend-compile durations."""
+
+    EVENTS = ("/jax/core/compile/jaxpr_trace_duration",
+              "/jax/core/compile/jaxpr_to_mlir_module_duration",
+              "/jax/core/compile/backend_compile_duration")
+
+    def __init__(self):
+        self.total = 0.0
+
+    def __call__(self, event, duration, **_):
+        if event in self.EVENTS:
+            self.total += duration
+
+
+def run_cadence(sim, clock, warmup_cadences: int = WARMUP_CADENCES,
+                max_cadences: int = MAX_TIMED_CADENCES) -> dict:
+    """The measurement window.  Warm up through `warmup_cadences` cadence
+    boundaries plus WARMUP_EXTRA steps (their replans grow the walk caps
+    to the developed flow and recompile), then time whole rebuild
+    cadences (ntreebuildstep steps, each with its host replan and async
+    bursts) until one triggers no recompile, at most `max_cadences`.
+    Every timed cadence is printed; the result is the last one timed."""
+    ntb = sim.params.intparams["ntreebuildstep"]
+    N = getattr(sim, "_n_orig", sim.state.N)    # sharded: real particles
+    advance(sim, warmup_cadences * ntb + WARMUP_EXTRA)
+    float(sim.state.t)
+    for _ in range(max_cadences):
+        rec0, c0, s0 = sim.n_recompiles, clock.total, sim.Nsteps
+        t0 = time.perf_counter()
+        advance(sim, ntb)
+        t_end = float(sim.state.t)          # forces full completion
+        elapsed = time.perf_counter() - t0
+        res = {"N": N, "steps": sim.Nsteps - s0, "seconds": elapsed,
+               "particle_steps_per_sec": N * (sim.Nsteps - s0) / elapsed,
+               "recompiles_in_window": sim.n_recompiles - rec0,
+               "compile_s_in_window": clock.total - c0}
+        print(f"cadence: {json.dumps(res)}", flush=True)
+        if res["recompiles_in_window"] == 0:
+            break
+    rho = np.asarray(sim.state.rho)
+    if not (np.isfinite(t_end) and np.isfinite(rho).all()
+            and rho.min() > 0.0):
+        raise RuntimeError("non-finite or non-positive state after cadence")
+    if bool(sim.state.neib_overflow):
+        raise RuntimeError("neighbour overflow unresolved after cadence")
+    return res
+
+
+def measure(n_side: int, self_gravity: int = 1) -> dict:
+    """Build the flagship box at n_side^3 and time its window
+    (run_cadence) on the GPU; raises on any failure."""
     import jax
+    import jax.monitoring
 
     from gandalf_tpu.utils.compile_cache import enable_compile_cache
 
     enable_compile_cache()
     require_gpu(jax)
-
-    from gandalf_tpu.sim.ic import generate_ic
-    from gandalf_tpu.state import make_sph_state
-
-    sim = build_sim(n_side, self_gravity)
-    if neib == "bruteforce":
-        sim.use_celllist = False
-    ic = generate_ic(sim.params, sim.eos)
-    jitter_box(ic, n_side)
-    state = make_sph_state(ic["r"], ic["v"], ic["m"], ic["h"], ic["u"])
-    N = state.N
-    sim.state = state
-    if sim.use_celllist:
-        # growth 1.3: the converged-h tail sits ~10% above the lattice
-        # estimate; a tighter margin trips the overflow-replan path
-        sim._plan_grid(ic["r"], ic["h"], growth=1.3)
-        if sim.self_gravity:
-            sim._plan_tree_buckets(np.asarray(ic["r"]))
-        print(f"bench: N={N} ncells={sim.gridspec.ncells} "
-              f"K={sim.gridspec.k_cell} tree={sim.treespec}",
-              file=sys.stderr)
-
-    sim._compile()
-    bootstrap = jax.jit(sim._build_bootstrap())
-    sim.state = bootstrap(sim.state)    # includes the planned bucket_map
-    ntb = max(sim.params.intparams["ntreebuildstep"], 1)
-    if n_steps % ntb != 0:
-        # the methodology amortises exactly (n_steps / ntb) host replans
-        # into the number; a misaligned window would time zero (or a
-        # fractional share of) cadence rebuilds and silently flatter the
-        # result (ADVICE r4)
-        print(f"bench: WARNING n_steps={n_steps} not a multiple of "
-              f"ntreebuildstep={ntb}; the timed window does not amortise "
-              "a whole number of cadence rebuilds", file=sys.stderr)
-    # warmup: compile + first production steps — BOTH the fused-cadence
-    # program (main_loop_steps) and the single-step fallback compile here,
-    # off the clock (any drift-skin replan the bootstrap-to-step
-    # transition needs also lands here)
-    sim.main_loop_steps(2)
-    if sim.use_celllist and sim.treespec is not None:
-        # replan with the LIVE timestep: the pre-bootstrap plan had dt = 0,
-        # so its drift skin only covers ~0.25 h_med of motion; the post-
-        # warmup replan sizes the skin for a full rebuild cadence, putting
-        # the timed window on the production steady state (one cadence
-        # rebuild, no spurious overflow replans)
-        if sim._plan_tree_buckets(np.asarray(sim.state.r)):
-            sim._compile()
-        sim.main_loop_steps(2)          # re-warm (recompiles if caps moved)
-    assert np.isfinite(float(sim.state.rho.min())), "non-finite density"
-
-    steps0, ovf0 = sim.Nsteps, getattr(sim, "_n_grid_overflows", 0)
-    t0 = time.perf_counter()
-    done = 0
-    while done < n_steps:
-        done += sim.main_loop_steps(n_steps - done)
-    t_end = float(sim.state.t)          # forces full completion
-    elapsed = time.perf_counter() - t0
-    # cadence rebuilds amortised into the window (boundary crossings of
-    # the ntreebuildstep grid) + any overflow-driven replans
-    n_rebuilds = (sim.Nsteps // ntb) - (steps0 // ntb) if sim.use_celllist \
-        and sim.treespec is not None else 0
-    n_ovf = getattr(sim, "_n_grid_overflows", 0) - ovf0
-    state = sim.state
-    rho_min = float(state.rho.min())
-    rho_max = float(state.rho.max())
-    assert t_end > 0.0 and np.isfinite(t_end)
-    assert np.isfinite(rho_min) and np.isfinite(rho_max) and rho_min > 0.0, \
-        f"invalid density after bench: [{rho_min}, {rho_max}]"
-    if bool(state.neib_overflow):
-        raise RuntimeError("neighbour overflow unresolved after bench")
+    clock = CompileClock()
+    jax.monitoring.register_event_duration_secs_listener(clock)
+    res = run_cadence(flagship_sim(n_side, self_gravity=self_gravity),
+                      clock)
     dev = jax.devices()[0]
-    return {"N": N, "particle_steps_per_sec": N * n_steps / elapsed,
-            "n_steps": n_steps, "rebuilds_in_window": n_rebuilds,
-            "overflow_replans_in_window": n_ovf,
-            "platform": dev.platform, "device_kind": dev.device_kind,
-            "device_count": len(jax.devices())}
+    return dict(res, platform=dev.platform, device_kind=dev.device_kind,
+                device_count=len(jax.devices()))
 
 
 def _child() -> int:
-    n_side = int(os.environ["BENCH_NSIDE"])
-    # default window = one full rebuild cadence, so the host replan is
-    # amortised into the measurement exactly once
-    n_steps = int(os.environ.get("BENCH_NSTEPS", "0")) \
-        or int(os.environ.get("BENCH_NTB", "32"))
-    neib = os.environ.get("BENCH_NEIB", "kdtree")
-    grav = int(os.environ.get("BENCH_GRAVITY", "1"))
-    out = measure(n_side, n_steps, neib, grav)
+    out = measure(int(os.environ["BENCH_NSIDE"]),
+                  int(os.environ.get("BENCH_GRAVITY", "1")))
     print("BENCH_RESULT " + json.dumps(out))
     return 0
 
@@ -234,6 +246,7 @@ def _emit(best, gravity: bool) -> None:
         "value": round(val, 1),
         "unit": "particle-steps/s/device",
         "vs_baseline": round(val / ref, 3) if ref else 0.0,
+        "recompiles_in_window": best["recompiles_in_window"],
         "platform": best["platform"],
         "device_kind": best["device_kind"],
         "device_count": best["device_count"],
@@ -246,7 +259,6 @@ def main() -> int:
 
     sizes = [int(s) for s in os.environ.get(
         "BENCH_SIZES", "16,64,100").split(",")]
-    n_steps = os.environ.get("BENCH_NSTEPS", "0")
     gravity = bool(int(os.environ.get("BENCH_GRAVITY", "1")))
     t_start = time.perf_counter()
     budget = float(os.environ.get("BENCH_BUDGET", "2100"))
@@ -257,8 +269,7 @@ def main() -> int:
             print(f"bench: budget exhausted before n_side={n_side}",
                   file=sys.stderr)
             break
-        env = dict(os.environ, BENCH_CHILD="1", BENCH_NSIDE=str(n_side),
-                   BENCH_NSTEPS=n_steps)
+        env = dict(os.environ, BENCH_CHILD="1", BENCH_NSIDE=str(n_side))
         try:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__)],
@@ -266,8 +277,11 @@ def main() -> int:
         except subprocess.TimeoutExpired:
             print(f"bench: n_side={n_side} timed out", file=sys.stderr)
             break
-        line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("BENCH_RESULT ")]
+        lines = proc.stdout.splitlines()
+        for ln in lines:
+            if ln.startswith("cadence: "):
+                print(f"bench: n_side={n_side} {ln}", file=sys.stderr)
+        line = [ln for ln in lines if ln.startswith("BENCH_RESULT ")]
         if proc.returncode != 0 or not line:
             print(f"bench: n_side={n_side} failed "
                   f"(rc={proc.returncode})\n" + proc.stderr[-2000:],

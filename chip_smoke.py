@@ -12,8 +12,9 @@ One GPU, one process (a JAX process reserves most of the card):
             gate L1(vx) < 9e-3 (tests/test_adsod.py).
   flagship  the 1M-particle self-gravitating grad-h SPH box of bench.py
             through SimulationBase.factory -> SetupSimulation ->
-            main_loop_steps: warm-up cadences, then one rebuild cadence
-            (host replan + async bursts) timed as particle-steps/s.
+            main_loop_steps, timed as particle-steps/s over bench.py's
+            window (bench.run_cadence): the first rebuild cadence (host
+            replan + async bursts) without a recompile after warm-up.
   oracle    on the state after the cadence, the production hydro and
             gravity passes run again and are compared at N_SAMPLE random
             targets, against every source, with the float64 oracles.
@@ -42,10 +43,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_SIDE = 100                # 100^3 = 1M particles, bench.py's flagship size
 N_SAMPLE = 2048             # oracle targets, each against all sources
-WARMUP_CADENCES = 2         # replans before timing: caps settle on
-WARMUP_EXTRA = 2            # converged h and the developed flow
-MAX_TIMED_CADENCES = 2      # time cadences until one runs without a
-                            # recompile (cap growth at the replan)
 FOUR_NTB = 8                # --four: cadence length (4 cards cost 4x)
 
 # Gates, each the repo's own (reasons in PERF.md):
@@ -67,21 +64,6 @@ Courant : courant_mult = 0.2
 Accel : accel_mult = 0.4
 Energy : energy_mult = 0.5
 """
-
-
-class CompileClock:
-    """Sums JAX's trace, lowering and backend-compile durations."""
-
-    EVENTS = ("/jax/core/compile/jaxpr_trace_duration",
-              "/jax/core/compile/jaxpr_to_mlir_module_duration",
-              "/jax/core/compile/backend_compile_duration")
-
-    def __init__(self):
-        self.total = 0.0
-
-    def __call__(self, event, duration, **_):
-        if event in self.EVENTS:
-            self.total += duration
 
 
 def run_phase(name, fn, clock):
@@ -138,91 +120,27 @@ def phase_sod() -> float:
     return l1
 
 
-def flagship_sim(n_side: int, nmpi: int = 0, ntb: int = None):
-    """The bench.py flagship box, jittered as bench.py does, set up
-    through the user path: factory, `ic = python` imports, setup.
-    `ntb` overrides the rebuild cadence."""
-    from bench import flagship_params, jitter_box
-    from gandalf_tpu.sim.ic import generate_ic
-    from gandalf_tpu.sim.simulation import SimulationBase
-
-    params = flagship_params(n_side)
-    params.set("run_id", "SMOKE")
-    params.set("Nmpi", nmpi)
-    if ntb is not None:
-        params.set("ntreebuildstep", ntb)
-    sim = SimulationBase.factory(params)
-    sim.process_parameters()
-    ic = generate_ic(sim.params, sim.eos)
-    jitter_box(ic, n_side)
-    sim.SetParam("ic", "python")
-    for k, name in enumerate("xyz"):
-        sim.ImportArray(ic["r"][:, k], name)
-        sim.ImportArray(ic["v"][:, k], "v" + name)
-    for name in ("m", "h", "u"):
-        sim.ImportArray(ic[name], name)
-    sim.SetupSimulation()
-    return sim
-
-
-def advance(sim, n: int) -> None:
-    done = 0
-    while done < n:
-        done += sim.main_loop_steps(n - done)
-
-
-def run_cadence(sim, clock, warmup_cadences: int = WARMUP_CADENCES,
-                max_cadences: int = MAX_TIMED_CADENCES) -> dict:
-    """Warm up through `warmup_cadences` cadence boundaries (their
-    replans grow the walk caps to the developed flow and recompile), then
-    time whole rebuild cadences — each with its replan and async bursts —
-    until one triggers no recompile (at most `max_cadences`).  The
-    result is that cadence; every timed cadence is printed."""
-    ntb = sim.params.intparams["ntreebuildstep"]
-    N = getattr(sim, "_n_orig", sim.state.N)    # sharded: real particles
-    advance(sim, warmup_cadences * ntb + WARMUP_EXTRA)
-    float(sim.state.t)
-    for _ in range(max_cadences):
-        rec0, c0, s0 = sim.n_recompiles, clock.total, sim.Nsteps
-        t0 = time.perf_counter()
-        advance(sim, ntb)
-        t_end = float(sim.state.t)
-        elapsed = time.perf_counter() - t0
-        res = {"N": N, "steps": sim.Nsteps - s0, "seconds": elapsed,
-               "particle_steps_per_sec": N * (sim.Nsteps - s0) / elapsed,
-               "recompiles_in_window": sim.n_recompiles - rec0,
-               "compile_s_in_window": clock.total - c0}
-        print(f"cadence: {json.dumps(res)}", flush=True)
-        if res["recompiles_in_window"] == 0:
-            break
-    rho = np.asarray(sim.state.rho)
-    if not (np.isfinite(t_end) and np.isfinite(rho).all()
-            and rho.min() > 0.0):
-        raise RuntimeError("non-finite or non-positive state after cadence")
-    if bool(sim.state.neib_overflow):
-        raise RuntimeError("neighbour overflow unresolved after cadence")
-    return res
-
-
 # -- oracle comparison --------------------------------------------------------
-def _tree_positions(sim, r: np.ndarray) -> np.ndarray:
-    """Positions as the gravity walk sees them: each bucket unwrapped
-    around its first particle across periodic seams."""
-    import jax.numpy as jnp
-
-    from gandalf_tpu.ops.tree import unwrap_to_buckets
-
-    pext = sim._periodic_extent()
-    if pext is None:
+def bucket_images(r: np.ndarray, bucket_map: np.ndarray,
+                  extent) -> np.ndarray:
+    """Positions as the isolated-box (ewald = 0) gravity walk sees them,
+    from the bucket membership alone: every member of a bucket takes the
+    periodic image nearest the bucket's first member.  Plain numpy,
+    independent of the walk's own unwrap.  `bucket_map` rows are buckets
+    of particle ids (-1 = empty slot); `extent` is the box length per
+    axis (0 = open), or None for an open box."""
+    if extent is None:
         return r
-    flat = np.asarray(sim.state.bucket_map).reshape(-1)
-    in_map = flat >= 0
-    safe = np.maximum(flat, 0)
-    r_s = np.where(in_map[:, None], r[safe], 1e15)
-    r_s = np.asarray(unwrap_to_buckets(sim.treespec, jnp.asarray(r_s),
-                                       jnp.asarray(in_map), pext))
+    ext = np.asarray(extent, np.float64)
+    real = bucket_map >= 0
+    first = bucket_map[np.arange(len(bucket_map)), real.argmax(axis=1)]
+    ids = bucket_map[real]
+    anchor = r[np.repeat(first, real.sum(axis=1))]
+    d = r[ids] - anchor
+    per = ext > 0
+    d = np.where(per, d - ext * np.round(d / np.where(per, ext, 1.0)), d)
     out = r.copy()
-    out[flat[in_map]] = r_s[in_map]
+    out[ids] = anchor + d
     return out
 
 
@@ -233,15 +151,20 @@ def oracle_errors(sim, n_sample: int = N_SAMPLE, seed: int = 0,
     with the float64 oracles: compute_h_bruteforce (h, rho),
     compute_hydro_forces over all sources within kernel support
     (hydro acceleration, fed the production per-particle fields), and
-    direct_sph_gravity (gravitational acceleration)."""
+    direct_sph_gravity on the positions of bucket_images
+    (gravitational acceleration)."""
     import jax
     import jax.numpy as jnp
 
     from gandalf_tpu.ops.density import compute_h_bruteforce
     from gandalf_tpu.ops.forces import NeighborView, compute_hydro_forces
     from gandalf_tpu.ops.sph_gravity import direct_sph_gravity
+    from gandalf_tpu.state import GAS_TYPE
 
     s0 = sim.state
+    if bool((np.asarray(s0.ptype) != GAS_TYPE).any()):
+        raise ValueError("the gravity oracle takes every live particle as "
+                         "gravitating gas")
     hyd = jax.jit(sim._hydro_only_pass)(s0)
     a_grav, _, ovf = jax.jit(sim._self_gravity)(hyd)
     if bool(hyd.neib_overflow) or bool(ovf):
@@ -255,10 +178,11 @@ def oracle_errors(sim, n_sample: int = N_SAMPLE, seed: int = 0,
     fields["m"] = np.where(alive, fields["m"], 0.0)
     v = f64(s0.v)
     h_start = f64(s0.h)
-    m_grav = f64(sim._gravity_mass(s0))
     a_hydro = f64(hyd.a)
     a_grav = f64(a_grav)
-    r_tree = _tree_positions(sim, r)
+    r_tree = bucket_images(
+        r, np.asarray(s0.bucket_map).reshape(-1, sim.treespec.leaf_size),
+        sim._periodic_extent())
     rng = np.random.default_rng(seed)
     n_sample = min(n_sample, int(alive.sum()))
     n_sample -= n_sample % chunk if n_sample >= chunk else 0
@@ -300,7 +224,7 @@ def oracle_errors(sim, n_sample: int = N_SAMPLE, seed: int = 0,
     with jax.enable_x64(True):
         jd, jh, jg = jax.jit(dens), jax.jit(hydro), jax.jit(grav)
         R, V, RT = jnp.asarray(r), jnp.asarray(v), jnp.asarray(r_tree)
-        M, MG = jnp.asarray(fields["m"]), jnp.asarray(m_grav)
+        M = jnp.asarray(fields["m"])
         F = {k: jnp.asarray(x) for k, x in fields.items()}
         rho_ref, h_ref, ah_ref, ag_ref, reach = [], [], [], [], np.inf
         for i in range(0, n_sample, chunk):
@@ -311,7 +235,7 @@ def oracle_errors(sim, n_sample: int = N_SAMPLE, seed: int = 0,
             a_h, rch = jh(jnp.asarray(t), R, V, F)
             ah_ref.append(np.asarray(a_h))
             reach = min(reach, float(rch))
-            ag_ref.append(np.asarray(jg(jnp.asarray(t), RT, MG, F)))
+            ag_ref.append(np.asarray(jg(jnp.asarray(t), RT, M, F)))
     if not reach > support2:
         raise RuntimeError("hydro oracle view misses sources within "
                            "kernel support; raise k_nb")
@@ -362,6 +286,8 @@ def accel_parity(a_test: np.ndarray, a_ref: np.ndarray) -> tuple:
 def phase_four(clock) -> dict:
     import jax
 
+    from bench import advance, flagship_sim, run_cadence
+
     n_dev = len(jax.devices())
     if n_dev < 4:
         raise RuntimeError(f"--four needs 4 devices, JAX sees {n_dev}")
@@ -409,11 +335,14 @@ def main() -> int:
                     help="run only the four-GPU distributed phase")
     args = ap.parse_args()
 
+    import bench
     import gandalf_tpu
 
-    if os.path.dirname(os.path.dirname(os.path.abspath(
-            gandalf_tpu.__file__))) != HERE:
-        raise SystemExit("gandalf_tpu must come from this checkout")
+    if {os.path.dirname(os.path.abspath(bench.__file__)),
+            os.path.dirname(os.path.dirname(os.path.abspath(
+                gandalf_tpu.__file__)))} != {HERE}:
+        raise SystemExit("bench and gandalf_tpu must come from this "
+                         "checkout")
     import jax
     import jax.monitoring
 
@@ -426,17 +355,17 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     print(f"jax.devices(): {jax.devices()}", flush=True)
-    clock = CompileClock()
+    clock = bench.CompileClock()
     jax.monitoring.register_event_duration_secs_listener(clock)
 
     if args.four:
         run_phase("four", lambda: phase_four(clock), clock)
     else:
         run_phase("sod", phase_sod, clock)
-        sim = run_phase("flagship:setup", lambda: flagship_sim(N_SIDE),
-                        clock)
+        sim = run_phase("flagship:setup",
+                        lambda: bench.flagship_sim(N_SIDE), clock)
         res = run_phase("flagship:cadence",
-                        lambda: run_cadence(sim, clock), clock)
+                        lambda: bench.run_cadence(sim, clock), clock)
         print(f"flagship: N={res['N']} {res['steps']} steps in "
               f"{res['seconds']:.3f} s = "
               f"{res['particle_steps_per_sec']:.1f} particle-steps/s on "

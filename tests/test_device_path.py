@@ -1,9 +1,10 @@
 """Device bring-up pieces that say something without a GPU: compile-cache
-placement, the bench's platform gate, pair-slab sizing from device memory,
-the smoothed tree walk against its all-pairs oracle, and chip_smoke.py's
-sampled-oracle comparison at small N.  The GPU half of chip_smoke.py runs
-under the `gpu` marker (skips here)."""
+placement, the bench's platform gate and measurement window, pair-slab
+sizing from device memory, the smoothed tree walk against its all-pairs
+oracle, and chip_smoke.py's sampled-oracle comparison at small N.  The GPU
+half of chip_smoke.py runs under the `gpu` marker (skips here)."""
 
+import json
 import os
 
 import jax
@@ -136,9 +137,9 @@ def test_direct_gravity_targets_match_full():
 
 @pytest.fixture(scope="module")
 def small_flagship():
-    """chip_smoke's flagship box at 10^3 particles, a few steps in."""
-    sim = chip_smoke.flagship_sim(10)
-    chip_smoke.advance(sim, 3)
+    """The flagship box at 10^3 particles, a few steps in."""
+    sim = bench.flagship_sim(10)
+    bench.advance(sim, 3)
     return sim
 
 
@@ -149,6 +150,55 @@ def test_chip_smoke_oracle_small(small_flagship):
     # float64 on both sides: only the tree's multipole truncation is left
     assert err["rho_max_rel"] < 1e-10 and err["h_max_rel"] < 1e-10
     assert err["hydro_median"] < 1e-9
+
+
+def test_bucket_images_match_walk_unwrap():
+    """The oracle's numpy unwrap places every bucket member at the image
+    the walk's own unwrap (unwrap_to_buckets) gives it, across seams."""
+    from gandalf_tpu.ops.tree import plan_tree, unwrap_to_buckets
+
+    rng = np.random.default_rng(7)
+    L, n_leaves = 8, 16
+    spec = plan_tree(n_leaves * L, leaf_size=L)
+    ext = [1.0, 2.0, 0.0]                   # z open
+    centres = rng.random((n_leaves, 3)) * np.array([1.0, 2.0, 1.0])
+    r_g = centres[:, None, :] + 0.05 * rng.standard_normal((n_leaves, L, 3))
+    r_g[..., :2] = np.mod(r_g[..., :2], ext[:2])   # wrap into the box
+    gmap = np.arange(n_leaves * L).reshape(n_leaves, L)
+    gmap[3, :2] = -1                        # empty first slots
+    gmap[5, :] = -1                         # an empty bucket
+    perm = rng.permutation(n_leaves * L)    # ids are not slot order
+    r = np.empty((n_leaves * L, 3))
+    r[perm] = r_g.reshape(-1, 3)
+    ids = np.where(gmap >= 0, perm[np.maximum(gmap, 0)], -1)
+    got = chip_smoke.bucket_images(r, ids, ext)
+    flat = ids.reshape(-1)
+    in_map = flat >= 0
+    r_s = np.where(in_map[:, None], r[np.maximum(flat, 0)], 1e15)
+    want = np.asarray(unwrap_to_buckets(spec, jnp.asarray(r_s),
+                                        jnp.asarray(in_map), ext))
+    np.testing.assert_allclose(got[flat[in_map]], want[in_map],
+                               rtol=0, atol=1e-12)
+    assert np.abs(got - r).max() > 0.5      # some member crossed a seam
+    assert chip_smoke.bucket_images(r, ids, None) is r
+
+
+def test_run_cadence_times_one_cadence(capsys):
+    """bench.run_cadence warms up, then times whole cadences until one
+    runs without a recompile, on the user-path box."""
+    sim = bench.flagship_sim(8, ntb=4)
+    res = bench.run_cadence(sim, bench.CompileClock())
+    timed = [json.loads(ln[len("cadence: "):])
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("cadence: ")]
+    assert 1 <= len(timed) <= bench.MAX_TIMED_CADENCES
+    assert timed[-1] == res and res["steps"] == 4 and res["N"] == 512
+    # a further cadence is timed only after one that recompiled
+    assert all(c["recompiles_in_window"] > 0 for c in timed[:-1])
+    assert sim.Nsteps == (bench.WARMUP_CADENCES * 4 + bench.WARMUP_EXTRA
+                          + 4 * len(timed))
+    assert res["particle_steps_per_sec"] == pytest.approx(
+        512 * 4 / res["seconds"])
 
 
 def test_oracle_failures_names_each_gate():
@@ -176,8 +226,8 @@ def test_flagship_oracle_on_gpu(gpu):
     """The float32 device path against the float64 oracles (the small
     version of chip_smoke.py's oracle phase)."""
     with jax.enable_x64(False):
-        sim = chip_smoke.flagship_sim(24)
-        chip_smoke.advance(sim, 4)
+        sim = bench.flagship_sim(24)
+        bench.advance(sim, 4)
         assert sim.state.r.dtype == jnp.float32
         err = chip_smoke.oracle_errors(sim, n_sample=512)
     assert chip_smoke.oracle_failures(err) == [], err
